@@ -26,15 +26,15 @@ def main(proc: int, nproc: int, devs: int, port: int, out: str,
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from numbskull_tpu.parallel import multihost
+    from numbskull_jax.parallel import multihost
     multihost.initialize(coordinator_address="127.0.0.1:%d" % port,
                          num_processes=nproc, process_id=proc)
     assert jax.process_count() == nproc
     import numpy as np
 
-    from numbskull_tpu.compile import compile_graph
-    from numbskull_tpu.models import coin_model
-    from numbskull_tpu.parallel.sharded import ShardedGibbsEngine
+    from numbskull_jax.compile import compile_graph
+    from numbskull_jax.models import coin_model
+    from numbskull_jax.parallel.sharded import ShardedGibbsEngine
 
     w, v, f, fm, dm, e = coin_model(n_copies, 0.5, -0.4, 0.3,
                                     evidence=False,

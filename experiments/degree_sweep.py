@@ -4,14 +4,12 @@ The reference's flagship scaling experiment
 (reference: salt/src/experiment_intro_degree.py:9-88 — 1.26M variables,
 degree 1..50, copies = n_vars/degree disjoint voting groups of one
 proposition + degree voters under a single AND factor;
-experiments/intro/generate.py), re-targeted at the TPU engines: each
-degree runs through the auto engine dispatch (the fused Pallas itemgrid
-kernel when the graph is in its envelope — degree+1 colors, arity
-degree+1 — else the XLA work-item engine). Rates are EPOCH-DIFFERENCED
-(numbskull_tpu/benchutil.py) and compiles go through the on-disk plan
-cache (NSX_PLAN_CACHE; second run's compile_s is ~0).
+experiments/intro/generate.py) through the XLA engine. Each rate is the
+best of three timed runs ending in block_until_ready
+(numbskull_jax/benchutil.py); compiles go through the on-disk plan
+cache (NSX_PLAN_CACHE; a second run's compile_s is ~0).
 
-Usage: python experiments/degree_sweep.py [out.tsv] [n_vars]
+Usage: PYTHONPATH=. python experiments/degree_sweep.py [out.tsv] [n_vars]
 """
 
 from __future__ import annotations
@@ -21,20 +19,17 @@ import sys
 import time
 
 import jax
-import numpy as np
 
-from numbskull_tpu.benchutil import epoch_rate
-from numbskull_tpu.compile import compile_graph
-from numbskull_tpu.models import voting_grouped
-from numbskull_tpu.ops import GibbsEngine
+from numbskull_jax.benchutil import timed_rate
+from numbskull_jax.compile import compile_graph
+from numbskull_jax.models import voting_grouped
+from numbskull_jax.ops import GibbsEngine
 
 
 def run(out_path="degree_sweep.tsv", n_vars=1_260_000,
         degrees=(1, 2, 5, 10, 20, 35, 50)):
-    cache = os.environ.get(
-        "NSX_PLAN_CACHE",
-        os.path.expanduser("~/.cache/numbskull_tpu"))  # 2nd run: ~0s
-    rows = ["degree\tn_vars\tn_colors\tengine\tcompile_s\tepoch_ms\t"
+    cache = os.environ.get("NSX_PLAN_CACHE")      # 2nd run: ~0s
+    rows = ["degree\tn_vars\tn_colors\tcompile_s\tepoch_ms\t"
             "updates_per_s"]
     for degree in degrees:
         args = voting_grouped(n_vars, degree, weight=0.3, seed=1)
@@ -45,33 +40,12 @@ def run(out_path="degree_sweep.tsv", n_vars=1_260_000,
                            cache=cache or None)
         compile_s = time.perf_counter() - t0
 
-        engine = "xla"
-        ups = per = None
-        if jax.default_backend() == "tpu":
-            try:
-                from numbskull_tpu.ops.itemgrid_pallas import \
-                    PallasItemGridEngine
-                eng = PallasItemGridEngine(cg)
-
-                def runner(ep, r):
-                    return eng.run(seed=1 + r, burn=0, epochs=ep,
-                                   host=False)
-
-                ups, per = epoch_rate(runner, V, lo=16, hi=1500)
-                engine = "itemgrid"
-            except ValueError as err:
-                print("degree %d: itemgrid fallback (%s)" % (degree, err),
-                      flush=True)
-        if ups is None:
-            eng = GibbsEngine(cg)
-            st = eng.init_state()
-
-            def runner(ep, r):
-                return eng.inference(st, jax.random.PRNGKey(1 + r),
-                                     epochs=ep).count
-
-            ups, per = epoch_rate(runner, V, lo=8, hi=200)
-        rows.append(f"{degree}\t{V}\t{cg.n_colors}\t{engine}\t"
+        eng = GibbsEngine(cg)
+        st = eng.init_state()
+        key = jax.random.PRNGKey(1)
+        ups, per = timed_rate(
+            lambda ep: eng.inference(st, key, epochs=ep).count, V, 200)
+        rows.append(f"{degree}\t{V}\t{cg.n_colors}\t"
                     f"{compile_s:.2f}\t{1e3 * per:.2f}\t{ups:.0f}")
         print(rows[-1], flush=True)
     with open(out_path, "w") as fh:

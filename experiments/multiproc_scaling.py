@@ -62,9 +62,9 @@ def bsp_row(n_copies: int, epochs: int):
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from numbskull_tpu.compile import compile_graph  # noqa: F401
-    from numbskull_tpu.models import coin_model
-    from numbskull_tpu.parallel.bsp import BSPEngine
+    from numbskull_jax.compile import compile_graph  # noqa: F401
+    from numbskull_jax.models import coin_model
+    from numbskull_jax.parallel.bsp import BSPEngine
 
     w, v, f, fm, dm, e = coin_model(n_copies, 0.5, -0.4, 0.3,
                                     evidence=False,

@@ -6,7 +6,7 @@ minions), re-targeted at mesh axes: sweep (chains, graph) mesh shapes
 over the available devices and report scaling efficiency of total
 variable updates per second. On a CPU host run with
 XLA_FLAGS=--xla_force_host_platform_device_count=8 (tests do this
-automatically); on a pod slice it measures real ICI scaling.
+automatically); on a multi-GPU host it measures scaling over NVLink.
 
 Usage: python experiments/scaling.py [out.tsv] [grid_n]
 """
@@ -17,8 +17,8 @@ import os
 import sys
 import time
 
-# NSX_CPU_DEVICES=N forces an N-device virtual CPU platform even where a
-# TPU plugin overrides JAX_PLATFORMS (must run before jax initializes)
+# NSX_CPU_DEVICES=N forces an N-device virtual CPU platform (must run
+# before jax initializes)
 if os.environ.get("NSX_CPU_DEVICES"):
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -28,10 +28,10 @@ if os.environ.get("NSX_CPU_DEVICES"):
 import jax
 import numpy as np
 
-from numbskull_tpu.compile import compile_graph
-from numbskull_tpu.models import ising_color_hint, ising_grid
-from numbskull_tpu.parallel.mesh import make_mesh
-from numbskull_tpu.parallel.sharded import ShardedGibbsEngine
+from numbskull_jax.compile import compile_graph
+from numbskull_jax.models import ising_color_hint, ising_grid
+from numbskull_jax.parallel.mesh import make_mesh
+from numbskull_jax.parallel.sharded import ShardedGibbsEngine
 
 
 def run(out_path="scaling.tsv", n=128, epochs=50):

@@ -1,6 +1,6 @@
 // compilecore — native graph-compile inner loops.
 //
-// The graph compiler (numbskull_tpu/compile.py) lowers a factor graph to
+// The graph compiler (numbskull_jax/compile.py) lowers a factor graph to
 // per-color work-item tables: the deduplicated (factor, variable, slot)
 // attachment relation of the reference's compute_var_map (reference:
 // numbskull/dataloading.py:16-81), folded to (factor, variable) items
@@ -457,7 +457,7 @@ int compile_fill3(int64_t F, int64_t V, const uint8_t* fac,
 // Greedy sequential graph coloring over a CSR adjacency, processing
 // vertices in the given order (a bandwidth-reducing order makes the
 // coloring ALIGNED: equivalent local structures get the same color
-// sequence, which keeps the itemgrid kernel's windows contiguous —
+// sequence, which keeps each color's rows in neighboring memory —
 // random-priority MIS coloring scatters them). color must be filled
 // with -1 by the caller. Returns the number of colors used.
 // Conflict pairs (normalized u <= w, self-pairs dropped) in the SAME

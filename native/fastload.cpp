@@ -2,10 +2,10 @@
 //
 // The graph.factors file is a variable-length record stream (reference
 // format: numbskull/dataloading.py:190-237); scanning it is inherently
-// sequential. numbskull_tpu.dataloading parses it with vectorized numpy
+// sequential. numbskull_jax.dataloading parses it with vectorized numpy
 // over equal-arity runs, which degrades on streams with rapidly
 // alternating arities; this native scanner is O(bytes) regardless.
-// Exposed via ctypes (numbskull_tpu.dataloading picks it up when built:
+// Exposed via ctypes (numbskull_jax.dataloading picks it up when built:
 // `make -C native libfastload.so`).
 
 #include <cstdint>

@@ -1,9 +1,9 @@
-// graphgen — native factor-graph generator for numbskull-tpu.
+// graphgen — native factor-graph generator for numbskull-jax.
 //
-// TPU-framework equivalent of the reference's only native component
+// Equivalent of the reference's only native component
 // (reference: ising/ising.cpp): a standalone C++ tool that emits factor
 // graphs in the DeepDive binary grounding format consumed by
-// numbskull_tpu.dataloading (and by the reference loaders). Written
+// numbskull_jax.dataloading (and by the reference loaders). Written
 // fresh; model families:
 //
 //   graphgen ising  <outdir> <N> <M> <weight>            Ising grid

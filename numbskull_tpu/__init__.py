@@ -1,25 +1,18 @@
-"""numbskull-tpu: a TPU-native Gibbs-sampling and weight-learning engine
-for factor graphs.
+"""The package's former import name, kept as an alias of ``numbskull_jax``.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-HazyResearch/numbskull (DeepDive / DimmWitted ecosystem): loads DeepDive
-binary grounding output, runs chromatic Gibbs inference over boolean and
-categorical variables, and learns factor weights by dual-chain SGD — as
-fused vectorized device kernels sharded over a `jax.sharding.Mesh`
-instead of hogwild CPU threads and SaltStack clusters.
+Importing it, or any of its submodules, gives the very module objects of
+``numbskull_jax``, so existing imports and pickles keep working. New code
+imports ``numbskull_jax``.
 """
 
-__version__ = "0.1.0"
+import importlib
+import pkgutil
+import sys
 
-from numbskull_tpu import dataloading  # noqa: F401
-from numbskull_tpu import dbsource  # noqa: F401
-from numbskull_tpu import observability  # noqa: F401
-from numbskull_tpu import resilience  # noqa: F401
-from numbskull_tpu.checkpoint import (  # noqa: F401
-    load_checkpoint, save_checkpoint,
-)
-from numbskull_tpu import types  # noqa: F401
-from numbskull_tpu.compile import compile_graph, CompiledGraph  # noqa: F401
-from numbskull_tpu.numbskull import NumbSkull, load, main  # noqa: F401
-from numbskull_tpu.ops import GibbsEngine, SamplerState, LearnParams  # noqa: F401
-from numbskull_tpu.types import FACTORS  # noqa: F401
+import numbskull_jax
+
+for _m in pkgutil.walk_packages(numbskull_jax.__path__, "numbskull_jax."):
+    if not _m.name.endswith(".__main__"):
+        sys.modules[__name__ + _m.name[len("numbskull_jax"):]] = \
+            importlib.import_module(_m.name)
+sys.modules[__name__] = numbskull_jax

@@ -4,7 +4,7 @@ The reference's multi-machine execution was only ever validated on live
 salt clusters (SURVEY.md §4); this program is the single-box stand-in:
 N OS processes, each owning a slice of virtual CPU devices, joined by
 jax.distributed into one global mesh, running the SAME SPMD
-ShardedGibbsEngine program a TPU pod would run (multihost.initialize ->
+ShardedGibbsEngine program a multi-host GPU job would run (multihost.initialize ->
 multihost.global_mesh -> collectives over the joint mesh; reference
 analog: salt/src/numbskull_master.py:133-233 epoch loop +
 setup_scripts/start_minions.sh cluster bring-up).
@@ -24,16 +24,16 @@ def main(proc: int, nproc: int, devs: int, port: int, out: str):
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from numbskull_tpu.parallel import multihost
+    from numbskull_jax.parallel import multihost
     multihost.initialize(coordinator_address="127.0.0.1:%d" % port,
                          num_processes=nproc, process_id=proc)
     assert jax.process_count() == nproc
     import numpy as np
 
-    from numbskull_tpu.compile import compile_graph
-    from numbskull_tpu.models import coin_model
-    from numbskull_tpu.ops.gibbs import LearnParams
-    from numbskull_tpu.parallel.sharded import ShardedGibbsEngine
+    from numbskull_jax.compile import compile_graph
+    from numbskull_jax.models import coin_model
+    from numbskull_jax.ops.gibbs import LearnParams
+    from numbskull_jax.parallel.sharded import ShardedGibbsEngine
 
     # every process builds the same graph (the multihost contract)
     a, b, c = 0.5, -0.4, 0.3

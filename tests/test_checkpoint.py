@@ -4,10 +4,10 @@ import numpy as np
 
 import jax
 
-from numbskull_tpu.checkpoint import load_checkpoint, save_checkpoint
-from numbskull_tpu.compile import compile_graph
-from numbskull_tpu.models import ising_grid
-from numbskull_tpu.ops import GibbsEngine
+from numbskull_jax.checkpoint import load_checkpoint, save_checkpoint
+from numbskull_jax.compile import compile_graph
+from numbskull_jax.models import ising_grid
+from numbskull_jax.ops import GibbsEngine
 
 
 def test_resume_bit_exact(tmp_path):

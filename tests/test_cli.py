@@ -5,9 +5,10 @@ import pytest
 
 import numpy as np
 
-from numbskull_tpu.numbskull import NumbSkull, load, main
+from numbskull_jax.numbskull import NumbSkull, load, main
 
-REF_DIR = "/root/reference/test"
+REF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "coin18")
 
 
 def test_cli_end_to_end(tmp_path):
@@ -100,7 +101,7 @@ def test_dump_probabilities_multivalue(tmp_path):
     """Dense multi-valued variables dump one line per value (the
     reference's dump reads past its single vmap slot here — a latent
     bug its tests never hit; we write identity values)."""
-    from numbskull_tpu.models import lf_model
+    from numbskull_jax.models import lf_model
 
     ns = NumbSkull(n_inference_epoch=50, quiet=True,
                    output_dir=str(tmp_path))
@@ -125,8 +126,8 @@ def test_load_api():
 def test_api_coverage_diagnostics_and_raw_load(capsys):
     """Diagnostics histogram/weight prints, compressed getMarginals, and
     loadFactorGraphRaw (prebuilt CompiledGraph) all function."""
-    from numbskull_tpu.compile import compile_graph
-    from numbskull_tpu.models import coin_model, lf_model
+    from numbskull_jax.compile import compile_graph
+    from numbskull_jax.models import coin_model, lf_model
 
     ns = NumbSkull(n_inference_epoch=20, n_learning_epoch=10, burn_in=2,
                    quiet=False, verbose=True)
@@ -150,9 +151,9 @@ def test_api_coverage_diagnostics_and_raw_load(capsys):
 def test_remaining_api_surface():
     """Every public function is exercised somewhere: burnIn,
     getFactorGraph, device_memory_stats, is_coordinator."""
-    from numbskull_tpu.models import coin_model
-    from numbskull_tpu.observability import device_memory_stats
-    from numbskull_tpu.parallel.multihost import is_coordinator
+    from numbskull_jax.models import coin_model
+    from numbskull_jax.observability import device_memory_stats
+    from numbskull_jax.parallel.multihost import is_coordinator
 
     ns = NumbSkull(quiet=True)
     ns.loadFactorGraph(*coin_model(2, evidence=True))
@@ -168,7 +169,7 @@ def test_remaining_api_surface():
 def test_programmatic_smoke():
     """Analog of reference loadfg.py: every factor function learns+infers
     without crashing."""
-    from numbskull_tpu import types as T
+    from numbskull_jax import types as T
 
     for name, code in T.FACTORS.items():
         if code == T.FUNC_NOOP:
@@ -205,8 +206,8 @@ def test_cli_distributed_parts_matches_single(tmp_path):
     output files."""
     import sqlite3
 
-    from numbskull_tpu import dbsource
-    from numbskull_tpu.models import coin_model
+    from numbskull_jax import dbsource
+    from numbskull_jax.models import coin_model
 
     w, v, f, fm, dm, e = coin_model(60, 0.8, -0.5, 0.4, evidence=True,
                                     weight_init=(0.0, 0.0, 0.0),

@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from numbskull_tpu import golden
-from numbskull_tpu import types as T
-from numbskull_tpu.compile import (
+from numbskull_jax import golden
+from numbskull_jax import types as T
+from numbskull_jax.compile import (
     build_attachments, color_variables, compile_graph, conflict_edges,
 )
-from numbskull_tpu.models import ising_grid, lf_model
+from numbskull_jax.models import ising_grid, lf_model
 
 
 def _random_graph(rng, n_vars=12, n_factors=20, cat_frac=0.4):
@@ -87,7 +87,7 @@ def test_ising_two_colors():
 
 
 def test_bipartite_coloring_grid_and_odd_cycle():
-    from numbskull_tpu.compile import bipartite_coloring
+    from numbskull_jax.compile import bipartite_coloring
 
     # 4x4 grid: bipartite -> 2 colors, no conflicts
     n = 4
@@ -110,7 +110,7 @@ def test_bipartite_coloring_grid_and_odd_cycle():
 
 
 def test_reduce_colors_preserves_validity():
-    from numbskull_tpu.compile import color_variables, reduce_colors
+    from numbskull_jax.compile import color_variables, reduce_colors
 
     rng = np.random.default_rng(5)
     n = 200
@@ -160,10 +160,10 @@ def test_voting_grouped_structure_and_coloring():
     """The reference's intro-degree family (copies = n_vars//degree
     disjoint groups, one AND factor of arity degree+1): greedy-in-RCM
     coloring uses exactly degree+1 colors aligned across groups, and
-    the itemgrid plan is single-slot (every variable in exactly one
+    the padded layout is single-slot (every variable in exactly one
     factor)."""
-    from numbskull_tpu.models import voting_grouped
-    from numbskull_tpu.ops.itemgrid_pallas import plan_item_grid
+    from numbskull_jax.models import voting_grouped
+    from numbskull_jax.ops import GibbsEngine
 
     w, v, f, fm, dm, e = voting_grouped(3000, 7, weight=0.3)
     assert len(f) == 3000 // 7
@@ -173,6 +173,6 @@ def test_voting_grouped_structure_and_coloring():
     # disjoint groups: each group's 8 vars get 8 distinct colors
     colors = cg.color_of.reshape(-1, 8)
     assert all(len(set(row)) == 8 for row in colors[:5])
-    plan, reason = plan_item_grid(cg)
-    assert plan is not None, reason
-    assert plan.D == 1 and plan.A == 8
+    meta = GibbsEngine(cg).padded_meta
+    assert meta is not None
+    assert meta.D == 1 and meta.A == 8

@@ -1,11 +1,14 @@
 """Binary format I/O: fixture parity, round trips, domains."""
 
+import os
+
 import numpy as np
 
-from numbskull_tpu import dataloading as dl
-from numbskull_tpu import types as T
+from numbskull_jax import dataloading as dl
+from numbskull_jax import types as T
 
-REF_DIR = "/root/reference/test"
+REF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "coin18")
 
 
 def test_load_reference_fixture():

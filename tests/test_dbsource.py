@@ -11,10 +11,10 @@ import sqlite3
 import numpy as np
 import pytest
 
-from numbskull_tpu import dbsource
-from numbskull_tpu import types as T
-from numbskull_tpu.models import coin_exact_marginal, coin_model
-from numbskull_tpu.numbskull import NumbSkull
+from numbskull_jax import dbsource
+from numbskull_jax import types as T
+from numbskull_jax.models import coin_exact_marginal, coin_model
+from numbskull_jax.numbskull import NumbSkull
 
 
 def _publish(args, var_keys=None, factor_keys=None, app="coin"):
@@ -135,9 +135,9 @@ def test_db_to_bsp_distributed_pipeline():
     could only do with a live salt+Postgres cluster."""
     import jax
 
-    from numbskull_tpu.compile import conflict_edges
-    from numbskull_tpu.parallel.bsp import BSPEngine
-    from numbskull_tpu.parallel.partition import choose_partition
+    from numbskull_jax.compile import conflict_edges
+    from numbskull_jax.parallel.bsp import BSPEngine
+    from numbskull_jax.parallel.partition import choose_partition
 
     args = coin_model(30, 0.3, -0.2, 0.4, evidence=False,
                       weight_init=(0.3, -0.2, 0.4), fixed=True)
@@ -194,9 +194,9 @@ def test_bsp_from_db_keyed_learning_messages(tmp_path):
 
     import jax
 
-    from numbskull_tpu import dbsource
-    from numbskull_tpu.models import coin_model
-    from numbskull_tpu.ops.gibbs import LearnParams
+    from numbskull_jax import dbsource
+    from numbskull_jax.models import coin_model
+    from numbskull_jax.ops.gibbs import LearnParams
 
     w, v, f, fm, dm, e = coin_model(120, 0.8, -0.5, 0.4, evidence=True,
                                     weight_init=(0.0, 0.0, 0.0),
@@ -241,8 +241,8 @@ def test_live_postgres_round_trip():
     """Full write -> partition-filtered read round-trip against a live
     PostgreSQL server (the reference's production ingest path,
     salt/src/messages.py:371-473). Gated: set NSX_PG_URL to run."""
-    from numbskull_tpu import dbsource
-    from numbskull_tpu.models import coin_model
+    from numbskull_jax import dbsource
+    from numbskull_jax.models import coin_model
 
     conn = dbsource.connect(os.environ["NSX_PG_URL"])
     try:
@@ -267,19 +267,19 @@ def test_categorical_eq_round_trips_db(tmp_path):
     """Categorical equal predicates survive the DB path: eq columns are
     written per argument when nonzero, read back into
     fmap.dense_equal_to, and inference marginals from the DB-loaded
-    graph match the direct graph exactly under the same seed (r2
-    VERDICT: the old loader hard-coded dense_equal_to = 0, so only
-    boolean graphs survived the DB)."""
+    graph match the direct graph exactly under the same seed (an older
+    loader hard-coded dense_equal_to = 0, so only boolean graphs
+    survived the DB)."""
     import sqlite3
 
     import jax
 
-    from numbskull_tpu import dbsource
-    from numbskull_tpu.compile import compile_graph
-    from numbskull_tpu.models import lf_model
-    from numbskull_tpu.ops import GibbsEngine
+    from numbskull_jax import dbsource
+    from numbskull_jax.compile import compile_graph
+    from numbskull_jax.models import lf_model
+    from numbskull_jax.ops import GibbsEngine
 
-    from numbskull_tpu import types as T
+    from numbskull_jax import types as T
 
     # card-3 categorical chain with AND_CAT equal predicates (eq 1/2)
     n = 12

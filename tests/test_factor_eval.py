@@ -10,9 +10,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from numbskull_tpu import golden
-from numbskull_tpu import types as T
-from numbskull_tpu.ops.factor_eval import eval_factors
+from numbskull_jax import golden
+from numbskull_jax import types as T
+from numbskull_jax.ops.factor_eval import eval_factors
 
 BOOL_FUNCS = [T.FUNC_IMPLY_NATURAL, T.FUNC_OR, T.FUNC_AND, T.FUNC_EQUAL,
               T.FUNC_ISTRUE, T.FUNC_LINEAR, T.FUNC_RATIO, T.FUNC_LOGICAL,

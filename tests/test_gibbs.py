@@ -11,15 +11,15 @@ import pytest
 
 import jax
 
-from numbskull_tpu import golden
-from numbskull_tpu import types as T
-from numbskull_tpu.compile import compile_graph
-from numbskull_tpu.models import (
+from numbskull_jax import golden
+from numbskull_jax import types as T
+from numbskull_jax.compile import compile_graph
+from numbskull_jax.models import (
     coin_exact_marginal, coin_model, ising_color_hint, ising_grid, lf_model,
     voting_model,
 )
-from numbskull_tpu.ops import GibbsEngine
-from numbskull_tpu.ops.gibbs import color_potentials
+from numbskull_jax.ops import GibbsEngine
+from numbskull_jax.ops.gibbs import color_potentials
 
 
 def _potentials_parity(cg, weights_val, var_value):
@@ -170,7 +170,7 @@ def test_reproducible():
 def test_potts_card4_marginals_exact():
     """High-cardinality categorical (Potts) grid through the padded
     fast path vs brute-force enumeration."""
-    from numbskull_tpu.models import potts_grid
+    from numbskull_jax.models import potts_grid
 
     args = potts_grid(2, 3, card=4, weight=0.5)
     w, v, f, fm, dm, e = args
@@ -214,7 +214,7 @@ def test_padded_path_falls_back_on_hub_rows():
     """A variable in hundreds of factors exceeds the padded layout's
     per-row slot cap; the engine must fall back to the flat path and
     still sample correctly."""
-    from numbskull_tpu.ops.gibbs import PADDED_DMAX
+    from numbskull_jax.ops.gibbs import PADDED_DMAX
 
     D = PADDED_DMAX + 10
     v = T.new_variables(1)

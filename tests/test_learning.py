@@ -10,9 +10,9 @@ import pytest
 
 import jax
 
-from numbskull_tpu.compile import compile_graph
-from numbskull_tpu.models import coin_model, lf_model
-from numbskull_tpu.ops import GibbsEngine, LearnParams
+from numbskull_jax.compile import compile_graph
+from numbskull_jax.models import coin_model, lf_model
+from numbskull_jax.ops import GibbsEngine, LearnParams
 
 
 def _learn(args, epochs, stepsize, decay=1.0, burn=10, lp=LearnParams(),

@@ -14,8 +14,8 @@ cardinality-3 variables, which the reference's script never covered.
 import numpy as np
 import pytest
 
-import numbskull_tpu as nt
-from numbskull_tpu import types as T
+import numbskull_jax as nt
+from numbskull_jax import types as T
 
 
 def _tiny_graph(code, card):
@@ -63,34 +63,3 @@ def test_learn_infer_survives(name, code, card):
     marg = fg.full_marginals(epochs)
     assert np.isfinite(marg).all()
     np.testing.assert_allclose(marg.sum(axis=1), 1.0, atol=1e-6)
-
-
-def test_learn_falls_back_when_itemgrid_learn_rejects():
-    """A graph can be INFERENCE-eligible for the fused kernel but
-    outside the learn kernel's envelope (e.g. cardinality 33..64,
-    where only the inference kernel has the vec-k path): learning must
-    warn and fall back to the XLA engine, not crash (round-5
-    regression: the ValueError from _make_learn_kernel's kmax gate
-    escaped _learn_once)."""
-    import warnings
-
-    from numbskull_tpu.models import coin_model
-
-    ns = nt.NumbSkull(n_inference_epoch=10, n_learning_epoch=5,
-                      burn_in=2, quiet=True)
-    ns.loadFactorGraph(*coin_model(4, 0.5, -0.4, 0.3, evidence=True,
-                                   weight_init=(0.0, 0.0, 0.0),
-                                   fixed=False, seed=1))
-    fg = ns.factorGraphs[0]
-
-    class _RejectingEngine:
-        def learn(self, *a, **k):
-            raise ValueError("itemgrid learn caps cardinality at 32")
-
-    fg._itemgrid[True] = _RejectingEngine()
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        ns.learning(out=False)
-    assert any("itemgrid learn fallback" in str(r.message) for r in rec)
-    w = np.asarray(fg.getWeights(), np.float64)
-    assert np.isfinite(w).all() and np.abs(w).max() > 0

@@ -8,7 +8,7 @@ jax.distributed (Gloo collectives across process boundaries) into one
 global mesh. The 2-process x 2-device run must produce BIT-IDENTICAL
 tallies and learned weights to the 1-process x 4-device run — the SPMD
 program is the same; only the process topology changes (the property a
-TPU pod relies on).
+multi-host job relies on).
 """
 
 import os
@@ -34,7 +34,7 @@ def _run(nproc: int, devs_per_proc: int, out: str):
     port = _free_port()
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    # the spawned prog imports numbskull_tpu by path (the package need
+    # the spawned prog imports numbskull_jax by path (the package need
     # not be pip-installed); sys.path[0] for a script is tests/, so the
     # repo root must ride PYTHONPATH
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

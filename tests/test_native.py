@@ -11,8 +11,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from numbskull_tpu import dataloading as dl
-from numbskull_tpu import types as T
+from numbskull_jax import dataloading as dl
+from numbskull_jax import types as T
 
 NATIVE = os.path.join(os.path.dirname(__file__), "..", "native")
 GRAPHGEN = os.path.join(NATIVE, "graphgen")
@@ -37,7 +37,7 @@ def test_graphgen_ising_loads(tmp_path):
 def test_graphgen_matches_python_writer(tmp_path):
     """graphgen's ising output is byte-identical to the python writer fed
     the same model."""
-    from numbskull_tpu.models import ising_grid
+    from numbskull_jax.models import ising_grid
 
     out = str(tmp_path / "native")
     subprocess.run([GRAPHGEN, "ising", out, "5", "5", "0.1"], check=True)
@@ -57,8 +57,8 @@ def test_graphgen_coin_learnable(tmp_path):
     """Generated coin evidence supports weight recovery end to end."""
     import jax
 
-    from numbskull_tpu.compile import compile_graph
-    from numbskull_tpu.ops import GibbsEngine, LearnParams
+    from numbskull_jax.compile import compile_graph
+    from numbskull_jax.ops import GibbsEngine, LearnParams
 
     out = str(tmp_path / "coin")
     subprocess.run([GRAPHGEN, "coin", out, "2000", "0.8", "-0.5", "0.4",
@@ -100,7 +100,7 @@ def test_fastload_matches_numpy_parser(tmp_path):
 
     data = open(os.path.join(out, "graph.factors"), "rb").read()
     # native path
-    os.environ["NUMBSKULL_TPU_FASTLOAD"] = FASTLOAD
+    os.environ["NUMBSKULL_JAX_FASTLOAD"] = FASTLOAD
     dl._FASTLOAD = None
     f1, fm1 = dl.load_factors(data, n, E)
     assert dl._FASTLOAD not in (None, False)
@@ -112,7 +112,7 @@ def test_fastload_matches_numpy_parser(tmp_path):
     assert (fm1 == fm2).all()
 
     # corrupt stream: native scanner reports, not crashes
-    os.environ["NUMBSKULL_TPU_FASTLOAD"] = FASTLOAD
+    os.environ["NUMBSKULL_JAX_FASTLOAD"] = FASTLOAD
     dl._FASTLOAD = None
     with pytest.raises(ValueError):
         dl.load_factors(data[:-8], n, E)
@@ -134,7 +134,7 @@ def test_compilecore_plans_equal_numpy_oracle():
     """The native compile core emits color plans exactly equal to the
     numpy pipeline on random mixed boolean/categorical graphs with
     duplicate args and skipped factors."""
-    import numbskull_tpu.compile as C
+    import numbskull_jax.compile as C
 
     assert C._compilecore() is not None
     rng = np.random.default_rng(7)
@@ -182,7 +182,7 @@ def test_compilecore_multibucket_fill_equal_numpy_oracle(monkeypatch):
     bucket split only engages at ~96 MB arenas, so shrink the bucket
     size to a few hundred bytes to force many buckets on a small
     graph."""
-    import numbskull_tpu.compile as C
+    import numbskull_jax.compile as C
 
     core = C._compilecore()
     assert core is not None
@@ -225,7 +225,7 @@ def test_compilecore_multibucket_fill_equal_numpy_oracle(monkeypatch):
 def test_native_dump_matches_numpy_formatter(tmp_path):
     """dump_rows output parses to the same values as the numpy
     formatter, including negatives and zero-padding."""
-    from numbskull_tpu.numbskull import _format_cols, _native_dump
+    from numbskull_jax.numbskull import _format_cols, _native_dump
 
     rng = np.random.default_rng(3)
     a = rng.integers(0, 10 ** 6, 500)

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from numbskull_tpu.compile import compile_graph, conflict_edges
-from numbskull_tpu.models import ising_grid
-from numbskull_tpu.parallel.partition import (
+from numbskull_jax.compile import compile_graph, conflict_edges
+from numbskull_jax.models import ising_grid
+from numbskull_jax.parallel.partition import (
     balanced_partition, choose_partition, connected_components, edge_cut,
     make_part_plans, partition_cost,
 )
@@ -14,7 +14,7 @@ def test_choose_partition_prefers_zero_cut_components():
     """Disconnected graphs (e.g. the coin model's independent pairs)
     should pick the component packing (zero cut), like the reference's
     cc-partition scheme (numbskull_master.py:301-325)."""
-    from numbskull_tpu.models import coin_model
+    from numbskull_jax.models import coin_model
     w, v, f, fm, dm, e = coin_model(50, evidence=True)
     edges = conflict_edges(v, f, fm)
     part, report = choose_partition(len(v), edges, 4)
@@ -106,7 +106,7 @@ def _planted_communities(n_comm=8, size=64, p_in=0.15, p_cross=0.004,
 def test_label_prop_beats_rcm_chunking_on_communities():
     """Measured cut reduction on a non-lattice graph (the gap the
     reference closed with METIS, salt/src/messages.py:591-670)."""
-    from numbskull_tpu.parallel.partition import label_prop_refine
+    from numbskull_jax.parallel.partition import label_prop_refine
 
     V, edges, perm, comm = _planted_communities()
     P = 4
@@ -128,7 +128,7 @@ def test_label_prop_never_worse_on_random_regular():
     """On an expander-like random graph no partitioner finds a small
     cut, but refinement must never lose to the chunking it started
     from, and must keep balance."""
-    from numbskull_tpu.parallel.partition import label_prop_refine
+    from numbskull_jax.parallel.partition import label_prop_refine
 
     rng = np.random.default_rng(7)
     V = 512
@@ -147,8 +147,8 @@ def test_label_prop_never_worse_on_random_regular():
 def test_label_prop_preserves_zero_cut():
     """Refining an already-perfect (zero-cut) partition must not break
     it."""
-    from numbskull_tpu.models import coin_model
-    from numbskull_tpu.parallel.partition import label_prop_refine
+    from numbskull_jax.models import coin_model
+    from numbskull_jax.parallel.partition import label_prop_refine
 
     w, v, f, fm, dm, e = coin_model(40, evidence=True)
     edges = conflict_edges(v, f, fm)

@@ -4,9 +4,9 @@ import time
 
 import numpy as np
 
-from numbskull_tpu import plancache
-from numbskull_tpu.compile import compile_graph
-from numbskull_tpu.models import ising_grid, voting_grouped
+from numbskull_jax import plancache
+from numbskull_jax.compile import compile_graph
+from numbskull_jax.models import ising_grid, voting_grouped
 
 
 def _cg_equal(a, b):
@@ -72,24 +72,3 @@ def test_graph_key_distinguishes_none_and_scalars():
     b = plancache.graph_key(0, 1)
     c = plancache.graph_key(None, "1")
     assert len({a, b, c}) == 3
-
-
-def test_itemgrid_plan_cached_via_cg_key(tmp_path, monkeypatch):
-    """plan_item_grid disk-caches its plan when the compile came
-    through the cache (cg.cache_key set + NSX_PLAN_CACHE)."""
-    from numbskull_tpu.ops.itemgrid_pallas import plan_item_grid
-
-    monkeypatch.setenv("NSX_PLAN_CACHE", str(tmp_path))
-    w, v, f, fm, dm, e = ising_grid(16, 16, weight=0.3)
-    cg = compile_graph(w, v, f, fm, domain_mask=dm, cache=str(tmp_path))
-    assert cg.cache_key
-    p1, r1 = plan_item_grid(cg)
-    n1 = len(list(tmp_path.iterdir()))
-    p2, r2 = plan_item_grid(cg)                       # hit
-    assert len(list(tmp_path.iterdir())) == n1
-    np.testing.assert_array_equal(p1.packed, p2.packed)
-    np.testing.assert_array_equal(p1.cmeta, p2.cmeta)
-    np.testing.assert_array_equal(p1.perm, p2.perm)
-    # different planning knobs -> distinct entries
-    plan_item_grid(cg, n_shards=2)
-    assert len(list(tmp_path.iterdir())) == n1 + 1

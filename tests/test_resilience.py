@@ -13,11 +13,11 @@ import pytest
 
 import jax
 
-from numbskull_tpu.compile import compile_graph
-from numbskull_tpu.models import coin_model
-from numbskull_tpu.observability import Metrics, metrics
-from numbskull_tpu.ops import GibbsEngine
-from numbskull_tpu.resilience import (
+from numbskull_jax.compile import compile_graph
+from numbskull_jax.models import coin_model
+from numbskull_jax.observability import Metrics, metrics
+from numbskull_jax.ops import GibbsEngine
+from numbskull_jax.resilience import (
     FaultInjector, StallError, call_with_timeout, run_resilient,
 )
 
@@ -90,7 +90,7 @@ def test_engine_feeds_default_metrics():
     metrics.reset()
     eng = _engine()
     st = eng.init_state()
-    from numbskull_tpu.numbskull import FactorGraph
+    from numbskull_jax.numbskull import FactorGraph
     fg = FactorGraph(eng.cg, 0)
     fg.inference(0, 5)
     snap = metrics.snapshot()

@@ -11,14 +11,14 @@ import pytest
 
 import jax
 
-from numbskull_tpu import golden
-from numbskull_tpu.compile import compile_graph
-from numbskull_tpu.models import (
+from numbskull_jax import golden
+from numbskull_jax.compile import compile_graph
+from numbskull_jax.models import (
     coin_exact_marginal, coin_model, ising_color_hint, ising_grid,
 )
-from numbskull_tpu.ops import GibbsEngine, LearnParams
-from numbskull_tpu.parallel.mesh import make_mesh
-from numbskull_tpu.parallel.sharded import ShardedGibbsEngine
+from numbskull_jax.ops import GibbsEngine, LearnParams
+from numbskull_jax.parallel.mesh import make_mesh
+from numbskull_jax.parallel.sharded import ShardedGibbsEngine
 
 
 def _sharded_marginals(cg, mesh, epochs=4000, burn=200, seed=0):

@@ -1,20 +1,15 @@
-"""Stencil (lattice) engines vs exact enumeration and the general engine.
-
-The Pallas kernel runs in interpreter mode on CPU (conftest forces the
-CPU backend); on real TPU hardware bench.py exercises the compiled path.
-"""
+"""Stencil (lattice) engine vs exact enumeration and the general engine."""
 
 import numpy as np
 import pytest
 
 import jax
 
-from numbskull_tpu import golden
-from numbskull_tpu.compile import compile_graph
-from numbskull_tpu.models import ising_color_hint, ising_grid
-from numbskull_tpu.ops import GibbsEngine
-from numbskull_tpu.ops.stencil import GridGibbsEngine
-from numbskull_tpu.ops.stencil_pallas import PallasGridGibbsEngine
+from numbskull_jax import golden
+from numbskull_jax.compile import compile_graph
+from numbskull_jax.models import ising_color_hint, ising_grid
+from numbskull_jax.ops import GibbsEngine
+from numbskull_jax.ops.stencil import GridGibbsEngine
 
 
 def _exact(n, m, w):
@@ -29,31 +24,6 @@ def test_xla_stencil_matches_exact():
     marg = eng.marginals(st, 8000)
     exact = _exact(3, 3, 0.4)
     assert np.abs(marg.ravel() - exact[:, 1]).max() < 0.04
-
-
-def test_pallas_stencil_mechanics_interpret():
-    """CPU interpreter: pltpu.prng_random_bits is NOT emulated (returns
-    zeros), so only kernel mechanics are checked here; the statistical
-    test below runs on real TPU hardware (and bench.py always exercises
-    the compiled kernel)."""
-    eng = PallasGridGibbsEngine(8, 8, 0.4, interpret=True)
-    x, cnt = eng.run(seed=0, burn=10, epochs=50)
-    x, cnt = np.asarray(x), np.asarray(cnt)
-    assert x.shape == (8, 8) and cnt.shape == (8, 8)
-    assert ((x == 0) | (x == 1)).all()
-    assert (cnt >= 0).all() and (cnt <= 50).all()
-    x2, cnt2 = eng.run(seed=0, burn=10, epochs=50)
-    assert (np.asarray(cnt2) == cnt).all()  # deterministic
-
-
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="compiled Pallas kernel needs TPU")
-def test_pallas_stencil_matches_exact_tpu():
-    eng = PallasGridGibbsEngine(3, 3, 0.4)
-    x, cnt = eng.run(seed=0, burn=300, epochs=6000)
-    marg = np.asarray(cnt, np.float64) / 6000
-    exact = _exact(3, 3, 0.4)
-    assert np.abs(marg.ravel() - exact[:, 1]).max() < 0.05
 
 
 def test_stencil_matches_general_engine():
